@@ -1,4 +1,4 @@
-"""gorio_tpu — a TPU-native (JAX/XLA/Pallas) radar-inertial SLAM & probabilistic
+"""gorio_tpu — a JAX/XLA radar-inertial SLAM & probabilistic
 inference framework with the capabilities of Go-RIO (1879615351/Go-RIO).
 
 This is a from-scratch re-design, not a port: every stage of the reference
@@ -11,7 +11,7 @@ functions over fixed-shape padded arrays, sharded over device meshes with
 Layering (see SURVEY.md §7):
   core/            SO(3)/SE(3) Lie math, SE-kernel integrals, linalg, point clouds
   estimators/      per-scan ops: ego-velocity RANSAC, ground seg, clustering, deskew
-  registration/    batched GICP/APDGICP/VGICP/NDT + GN/LM driver (+ Pallas kernels)
+  registration/    batched GICP/APDGICP/VGICP/NDT + GN/LM driver
   preintegration/  GP velocity preintegration: LPM (scan) and UGPM (batched GP solve)
   graph/           typed factor graph, robust kernels, batched sparse GN/LM, Laplace
   loopclosure/     Intensity Scan Context (scatter-max + circulant matmul), gates
@@ -19,7 +19,6 @@ Layering (see SURVEY.md §7):
   parallel/        mesh & sharding helpers, multi-host collectives
   pipeline/        the three "nodelets" as an offline/streaming driver
   io/              dataset readers/writers, synthetic generators, TUM export
-  ops/             Pallas TPU kernels for the hot paths
   utils/           profiling, timing stats
 """
 

@@ -1,6 +1,6 @@
 """Squared-exponential GP kernel and its analytic time-integrals, batched.
 
-TPU-native counterpart of `4DRadarSLAM/include/VelInt/math_utils.h:102-186,378`
+Counterpart of `4DRadarSLAM/include/VelInt/math_utils.h:102-186,378`
 (seKernel / seKernelIntegral / seKernelIntegralDt / seKernelIntegral2 / kssInt).
 All functions broadcast: `x1 (..., N)`, `x2 (..., M)` -> `(..., N, M)` and are
 built from erf/exp so they fuse into a handful of VPU ops under XLA.

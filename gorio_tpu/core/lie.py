@@ -1,6 +1,6 @@
 """Batched SO(3)/SE(3) Lie-group math.
 
-TPU-native counterpart of the reference's header-only Lie utilities
+Counterpart of the reference's header-only Lie utilities
 (`4DRadarSLAM/include/VelInt/math_utils.h:48-100`, `fast_apdgicp/include/fast_gicp/so3/so3.hpp`):
 every op works on arbitrarily batched inputs `(..., 3)` / `(..., 3, 3)` and is
 safe under `jit`/`vmap`/`grad` (Taylor fallbacks near the identity instead of
@@ -79,7 +79,7 @@ def so3_log(R):
     # endpoints, which leaks NaN through `where` in reverse-mode autodiff.
     # The margin must be representable IN THE INPUT DTYPE: in float32,
     # 1.0 - 1e-14 rounds back to 1.0 and the clip is a no-op — every f32
-    # autodiff consumer (TPU-path HMC, f32 graph solves) got NaN gradients
+    # autodiff consumer (f32 HMC, f32 graph solves) got NaN gradients
     # at identity-rotation residuals (found by the r5 ESS benchmark: chains
     # of NaNs). f32 margin 1e-6 => theta saturates ~1.4e-3 at the endpoints;
     # the rotvec value is unaffected near identity (r = scale * vee(R-R^T)

@@ -1,8 +1,7 @@
 """Closed-form small-matrix linear algebra, batched.
 
-TPU-friendly replacements for `jnp.linalg.{eigh, svd, inv}` on 3x3 blocks:
-the LAPACK-style iterative lowerings compile slowly and run as loops on TPU,
-while the covariance-shaping steps of GICP/VGICP/NDT/ground-seg only need a
+Closed-form replacements for `jnp.linalg.{eigh, svd, inv}` on 3x3 blocks:
+the LAPACK-style iterative lowerings compile slowly and run as loops, while the covariance-shaping steps of GICP/VGICP/NDT/ground-seg only need a
 decent spectral basis of symmetric 3x3 matrices. These are the analytic
 (trigonometric) eigenvalues plus cross-product eigenvectors, with guarded
 fallbacks for (near-)degenerate spectra.

@@ -1,6 +1,6 @@
 """DBSCAN clustering with distance-ranked cluster ids, fully batched.
 
-TPU-native counterpart of `DBSCANKdtreeCluster` + the ranking loop in the
+Counterpart of `DBSCANKdtreeCluster` + the ranking loop in the
 preprocessing nodelet (`preprocessing_nodelet_ntu.cpp:520-568`,
 `include/dbscan/DBSCAN_kdtree.h`): the kd-tree range queries become one
 batched kNN (distance-masked), the BFS cluster expansion becomes iterative

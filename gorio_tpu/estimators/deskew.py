@@ -1,6 +1,6 @@
 """Gyro-based scan deskewing.
 
-TPU-native counterpart of `PreprocessingNodelet::deskewing`
+Counterpart of `PreprocessingNodelet::deskewing`
 (`preprocessing_nodelet_ntu.cpp:658-719`): each point i is rotated by the
 inverse of the small-angle quaternion q = (1, dt/2 * w) with
 dt = scan_period * i / N and w = -omega (latest gyro before the scan stamp).

@@ -1,6 +1,6 @@
 """Doppler radar ego-velocity estimation — fully vectorized RANSAC + LSQ.
 
-TPU-native counterpart of the REVE-derived estimator
+Counterpart of the REVE-derived estimator
 (`4DRadarSLAM/src/radar_ego_velocity_estimator.cpp:60-303`,
 `include/radar_ego_velocity_estimator.h:31-60`).
 

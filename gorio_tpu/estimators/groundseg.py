@@ -1,6 +1,6 @@
 """Ground segmentation — batched Patchwork++ (Go-RIO variant).
 
-TPU-native counterpart of the modified Patchwork++ in
+Counterpart of the modified Patchwork++ in
 `4DRadarSLAM/include/patchworkpp/patchworkpp.hpp` (SURVEY.md §2 #6):
 
   * CZM binning (`pc2czm`, `:1160`) becomes a per-point (zone, ring, sector)

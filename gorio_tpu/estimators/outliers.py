@@ -1,10 +1,10 @@
 """Statistical / radius outlier removal, batched and masked.
 
-TPU-native counterpart of the reference's `pcl::StatisticalOutlierRemoval` /
+Counterpart of the reference's `pcl::StatisticalOutlierRemoval` /
 `pcl::RadiusOutlierRemoval` stage (`preprocessing_nodelet_ntu.cpp:153-172`
 configuration, applied at `:626-636`): instead of per-point kd-tree queries,
 the neighbor statistics come from the blocked brute-force distance kernel
-(one MXU matmul per block), exact and fully parallel over points.
+(one matmul per block), exact and fully parallel over points.
 """
 
 from __future__ import annotations

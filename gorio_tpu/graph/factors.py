@@ -1,6 +1,6 @@
 """Typed pose-graph factors with batched residuals and autodiff Jacobians.
 
-TPU-native counterpart of the reference's g2o layer: `GraphSLAM`'s 16
+Counterpart of the reference's g2o layer: `GraphSLAM`'s 16
 edge-adders (`src/radar_graph_slam/graph_slam.cpp:88-340`) and the custom edge
 types in `include/g2o/*.hpp` (SURVEY.md §2 #9/#16). Instead of heap-allocated
 edge objects, each factor family is a struct-of-arrays; residuals are `vmap`ed
@@ -154,7 +154,7 @@ class GraphData(NamedTuple):
 # SE3-plane edge (`graph_slam.cpp:37-51`, `include/g2o/edge_plane_*.hpp`,
 # `edge_se3_plane.hpp`). Here a plane variable is a homogeneous 4-vector
 # [n, d] with |n| = 1 (the plane is n.x + d = 0); its local chart is 3-dof:
-# 2 tangent directions of the unit normal + the offset — the TPU-friendly
+# 2 tangent directions of the unit normal + the offset — the fixed-shape
 # equivalent of g2o's spherical-coordinate VertexPlane::oplus.
 
 

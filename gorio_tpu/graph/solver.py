@@ -1,6 +1,6 @@
 """Batched Gauss-Newton / Levenberg-Marquardt pose-graph solver + Laplace.
 
-TPU-native counterpart of `GraphSLAM::optimize` (`graph_slam.cpp:353-382`,
+Counterpart of `GraphSLAM::optimize` (`graph_slam.cpp:353-382`,
 g2o `lm_var_cholmod`): factor residuals/Jacobians are evaluated with one
 `vmap` per factor family, scatter-added into block normal equations, and the
 damped system is solved densely (Cholesky) for graphs up to a few thousand
@@ -14,7 +14,6 @@ time on one core.
 
 from __future__ import annotations
 
-import functools
 from functools import partial
 from typing import NamedTuple
 
@@ -240,26 +239,7 @@ def _solve_cg(H, b, lam, dtype, iters):
     return x
 
 
-def _f32_matmuls(fn):
-    """Trace the wrapped function under full-f32 matmul precision.
-
-    TPU MXU f32 matmuls default to bfloat16 passes (~3 decimal digits) —
-    fine for the big NN/registration contractions, catastrophic for the
-    solver's tiny 4x4/6x6 chains (SE(3) composition, block-Thomas
-    recurrences, H/b assembly): at K~1000 the accumulated error floors LM at
-    a chi2 ~20x the true optimum. These matmuls are microscopic, so full
-    precision is free."""
-
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        with jax.default_matmul_precision("float32"):
-            return fn(*args, **kwargs)
-
-    return wrapped
-
-
 @partial(jax.jit, static_argnames=("cfg",))
-@_f32_matmuls
 def optimize_graph(poses0, graph: GraphData, cfg: SolveConfig = SolveConfig()) -> SolveResult:
     """LM optimization; gauge fixed by freezing pose 0 (cfg.fix_first)."""
     K = poses0.shape[0]
@@ -472,7 +452,6 @@ class PlaneSolveResult(NamedTuple):
 
 
 @partial(jax.jit, static_argnames=("cfg",))
-@_f32_matmuls
 def optimize_graph_with_planes(
     poses0,
     planes0,

@@ -1,7 +1,7 @@
 """Structure-exploiting pose-graph solver: block-sparse CG with a
 block-tridiagonal (chain) preconditioner.
 
-TPU-native counterpart of g2o's sparse backends (`graph_slam.cpp:353-382`,
+Counterpart of g2o's sparse backends (`graph_slam.cpp:353-382`,
 solver `lm_var_cholmod`): where CHOLMOD exploits the fill-in pattern of a
 SLAM chain with sparse Cholesky, this solver never materializes H at all —
 the normal equations live as block arrays
@@ -55,7 +55,6 @@ from .factors import (
 )
 from .solver import (
     SolveConfig,
-    _f32_matmuls,
     _family_terms,
     _weighted,
     graph_chi2,
@@ -172,9 +171,8 @@ def _inv3c(M):
 
 def inv6_spd(M):
     """Closed-form batched inverse of an SPD 6x6 via the 3x3-block Schur
-    complement — pure fused arithmetic instead of TPU LU (jnp.linalg.inv's
-    getrf custom call runs a slow sequential panel loop, which dominates the
-    block-Thomas scans)."""
+    complement — pure fused arithmetic instead of an LU custom call inside
+    the block-Thomas scans."""
     P = M[..., :3, :3]
     Q = M[..., :3, 3:]
     S = M[..., 3:, 3:]
@@ -240,7 +238,7 @@ def block_tridiag_solve(Dinv, C, b):
 # ---------------------------------------------------------------------------
 #
 # The block-Thomas recurrences above are K-sequential — at K~1000 the scan
-# latency (~6 us/step on a TPU core) dominates the whole LM iteration. The
+# latency dominates the whole LM iteration. The
 # SPIKE scheme partitions the chain into S groups of m rows, factorizes and
 # solves every group's interior tridiagonal IN PARALLEL (one vmapped m-step
 # scan instead of a K-step scan), couples the groups through a reduced
@@ -388,7 +386,7 @@ def solve_block_tridiag_spike(A, C, b, m=32):
 # columns ride one scan), and one small dense (12L)^2 solve — EXACT, unlike
 # CG in f32, whose residual stagnates around 1e-3 (and 0.2+ on loop-heavy
 # graphs), wrecking LM convergence. g2o/CHOLMOD parity path
-# (`graph_slam.cpp:353`): this is the TPU-shaped equivalent of its sparse
+# (`graph_slam.cpp:353`): this is the fixed-shape equivalent of its sparse
 # Cholesky on a chain-plus-loops sparsity pattern.
 
 
@@ -401,8 +399,7 @@ def solve_tridiag_woodbury(A, C, poses, between, b, loop_capacity):
     H = T' + G^T G with T' = the tridiagonal MINUS the loop edges' diagonal
     blocks. Woodbury then needs the SPD capacitance I + G T'^-1 G^T — a
     (6L)^2 CHOLESKY instead of the (12L)^2 LU of the indefinite off-diagonal
-    formulation (TPU LU is sequential-panel slow; Cholesky at half dimension
-    is ~10x cheaper), and half the multi-RHS width through the tridiagonal
+    formulation (Cholesky at half dimension is cheaper than LU), and half the multi-RHS width through the tridiagonal
     solve.
 
     A (K,6,6) damped diagonal blocks (INCLUDING loop-edge diagonal
@@ -493,7 +490,6 @@ def _damped(Hdiag, lam):
 
 
 @partial(jax.jit, static_argnames=("cfg",))
-@_f32_matmuls
 def optimize_graph_sparse(
     poses0, graph: GraphData, cfg: SolveConfig = SolveConfig()
 ) -> SparseSolveResult:
@@ -689,7 +685,6 @@ def _plane_block_terms(poses, planes, pg: PlaneGraphData):
 
 
 @partial(jax.jit, static_argnames=("cfg",))
-@_f32_matmuls
 def optimize_graph_with_planes_sparse(
     poses0,
     planes0,

@@ -15,18 +15,15 @@ def graph_logprob(poses0, graph: GraphData) -> Callable:
     """log p(delta) = -0.5 chi2(poses0 ⊞ delta) over stacked local coords
     (6K,). The density HMC/NUTS/SMC sample (BASELINE.json configs 3-5).
 
-    Evaluated under full-f32 matmul precision: on TPU the default bf16
-    matmul passes corrupt the tiny 4x4 SE(3) chains inside the residuals,
-    and HMC feels it harder than LM does — the leapfrog integrates the
-    GRADIENT, so ~3-digit energy noise collapses acceptance to ~0.06
-    (measured r5 on the 300-dof bench posterior; 0.90 with f32 matmuls).
-    These matmuls are microscopic; full precision is free."""
+    Needs full-f32 matmuls (`utils/jax_config.configure_jax`): a TF32 matmul
+    keeps ~3 digits, which corrupts the tiny 4x4 SE(3) chains inside the
+    residuals, and HMC feels it harder than LM does — the leapfrog integrates
+    the GRADIENT, so ~3-digit energy noise collapses acceptance."""
     K = poses0.shape[0]
 
     def logprob(delta):
-        with jax.default_matmul_precision("float32"):
-            poses = jax.vmap(retract)(poses0, delta.reshape(K, 6))
-            return -0.5 * graph_chi2(poses, graph)
+        poses = jax.vmap(retract)(poses0, delta.reshape(K, 6))
+        return -0.5 * graph_chi2(poses, graph)
 
     return logprob
 

@@ -3,14 +3,15 @@
 The compute path is JAX/XLA; the runtime around it — dataset decode with
 background prefetch, a threaded stage pipeline, a kd-tree for host-side
 validation — is C++ (native/), mirroring where the reference uses C++
-(nodelet manager, nanoflann, rosbag IO). The library is built on demand with
-CMake + Ninja/Make and cached under native/build.
+(nodelet manager, nanoflann, rosbag IO). The library is built on demand by
+one C++ compiler command over native/src/*.cc and cached under native/build.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import subprocess
 from pathlib import Path
 
@@ -27,23 +28,23 @@ class NativeUnavailable(RuntimeError):
 
 
 def build_native(force: bool = False) -> Path:
+    """Build libgorio_native.so under native/build with one C++ compiler
+    command (`$CXX`, else `c++`/`g++`) over native/src/*.cc."""
     lib = _BUILD / "libgorio_native.so"
     if lib.exists() and not force:
         return lib
+    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        raise NativeUnavailable("no C++ compiler found (set CXX)")
     _BUILD.mkdir(parents=True, exist_ok=True)
-    gen = []
-    try:
-        subprocess.run(["ninja", "--version"], capture_output=True, check=True)
-        gen = ["-G", "Ninja"]
-    except Exception:
-        pass
-    subprocess.run(
-        ["cmake", *gen, "-DCMAKE_BUILD_TYPE=Release", str(_NATIVE)],
-        cwd=_BUILD,
-        check=True,
+    sources = sorted(str(p) for p in (_NATIVE / "src").glob("*.cc"))
+    out = subprocess.run(
+        [cxx, "-std=c++17", "-O3", "-shared", "-fPIC", *sources, "-o", str(lib), "-lpthread"],
         capture_output=True,
+        text=True,
     )
-    subprocess.run(["cmake", "--build", ".", "-j"], cwd=_BUILD, check=True, capture_output=True)
+    if out.returncode != 0:
+        raise NativeUnavailable(f"{cxx} failed ({out.returncode}): {out.stderr[-2000:]}")
     return lib
 
 
@@ -119,7 +120,7 @@ FIELDS = 5  # x y z intensity doppler
 
 
 class NativeKDTree:
-    """Exact kd-tree NN (validation oracle for the TPU brute-force kernels)."""
+    """Exact kd-tree NN (validation oracle for the brute-force NN search)."""
 
     def __init__(self, points: np.ndarray, leaf_size: int = 16):
         lib = load()

@@ -1,6 +1,6 @@
 """Edge information matrices from registration fitness.
 
-TPU-native counterpart of `InformationMatrixCalculator`
+Counterpart of `InformationMatrixCalculator`
 (`src/radar_graph_slam/information_matrix_calculator.cpp`): fitness = mean
 squared NN residual of inliers (one batched 1-NN), then a sigmoid-weighted
 interpolation between min/max stddevs.

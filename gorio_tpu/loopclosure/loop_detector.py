@@ -1,6 +1,6 @@
 """Loop detection: candidate gating + Scan Context + registration verification.
 
-TPU-native counterpart of `LoopDetector`
+Counterpart of `LoopDetector`
 (`src/radar_graph_slam/loop_detector.cpp`, SURVEY.md §2 #12). The candidate
 prefilter (`find_candidates`, `:139-189`), odometry check (`:249-267`) and
 pairwise consistency check (`:270-297`) operate on per-keyframe metadata and
@@ -132,7 +132,7 @@ class LoopConfig(NamedTuple):
     pairwise_trans_cap: float = 8.0
     # number of Scan-Context candidates VERIFIED per new keyframe (the
     # reference verifies only the single descriptor-best match,
-    # `Scancontext.cpp:352-360`). On TPU extra candidates ride the same
+    # `Scancontext.cpp:352-360`). Extra candidates ride the same
     # vmapped registration batch — near-zero marginal latency — and recover
     # revisits whose best match fails verification or an acceptance gate.
     # Per keyframe the candidate list is: the global match (if it passes the

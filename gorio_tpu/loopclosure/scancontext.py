@@ -1,12 +1,12 @@
 """Intensity Scan Context as pure array ops.
 
-TPU-native counterpart of `SCManager`
+Counterpart of `SCManager`
 (`4DRadarSLAM/src/radar_graph_slam/Scancontext.cpp`,
 `include/scan_context/Scancontext.h:108-130`): the 40-ring x 20-sector
 max-intensity polar descriptor becomes a `segment_max` scatter, the ring-key
 kd-tree (nanoflann, rebuilt every 10 frames) becomes a batched L2 `top_k`
 against the whole database, and the shifted cosine distance evaluates ALL
-sector shifts as one gather + einsum (20 shifts is nothing on the VPU, so the
+sector shifts as one gather + einsum (20 shifts cost next to nothing, so the
 reference's fast-align/10%-search-ratio heuristics are unnecessary).
 """
 
@@ -150,7 +150,7 @@ def detect_loop_topk(
     """Top-`k` loop candidates by full shifted-cosine distance (same search
     as `detect_loop`; the reference keeps only the single best of its
     ring-key candidates, `Scancontext.cpp:352-360`). Verifying several
-    candidates costs one WIDER registration batch on TPU — same latency —
+    candidates costs one WIDER registration batch — one dispatch —
     and recovers revisits whose descriptor-best match fails verification or
     an acceptance gate. Returns (matches (k,), yaws (k,), dists (k,)),
     ordered best-first; entries above the distance threshold are -1."""

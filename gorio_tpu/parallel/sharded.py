@@ -50,6 +50,7 @@ from ..registration.gicp import (
     GICPProblem,
     _correspondences,
     _error_terms,
+    _gicp_normal_equations,
     prepare_gicp,
 )
 from ..registration.lsq import LMResult, lm_optimize
@@ -96,21 +97,11 @@ def _make_sharded_gicp_callbacks(prob: GICPProblem, cfg: GICPConfig, axis: str, 
     """The real `make_gicp_callbacks` linearization on a LOCAL source shard,
     with cost/H/b all-reduced over `axis` so the LM driver sees global
     quantities (replicated across devices)."""
-    from ..core import lie
 
     def linearize(T):
         idx, ok, mah, w, _ = _correspondences(prob, T, cfg, n_total=n_total)
         moved, err, m_err, cost = _error_terms(prob, T, idx, ok, mah, w)
-        sk = lie.hat(moved)
-        okf = ok.astype(moved.dtype)
-        MS = mah @ sk
-        H_rr = jnp.einsum("nji,njk,n->ik", sk, MS, okf)
-        H_rt = -jnp.einsum("nji,njk,n->ik", sk, mah, okf)
-        H_tt = jnp.einsum("nij,n->ij", mah, okf)
-        H = jnp.block([[H_rr, H_rt], [H_rt.T, H_tt]])
-        b_r = jnp.einsum("nji,nj,n->i", sk, m_err, okf)
-        b_t = -jnp.einsum("ni,n->i", m_err, okf)
-        b = jnp.concatenate([b_r, b_t])
+        H, b = _gicp_normal_equations(moved, mah, m_err, ok)
         cost = jax.lax.psum(cost, axis)
         H = jax.lax.psum(H, axis)
         b = jax.lax.psum(b, axis)

@@ -1,6 +1,6 @@
 """Keyframe records and the keyframe-decision gate.
 
-TPU-native counterpart of `KeyFrame`/`KeyFrameSnapshot`
+Counterpart of `KeyFrame`/`KeyFrameSnapshot`
 (`include/radar_graph_slam/keyframe.hpp:27,69`, `src/.../keyframe.cpp`) and
 `KeyframeUpdater` (`keyframe_updater.hpp:16-90`). Keyframes carry host-side
 metadata plus the fixed-shape cloud; save/load mirrors the per-keyframe

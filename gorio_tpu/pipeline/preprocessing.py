@@ -1,7 +1,7 @@
 """Preprocessing front-end: filters -> ego-velocity -> deskew -> ground seg ->
 clustering, as one per-frame function.
 
-TPU-native counterpart of `PreprocessingNodelet::cloud_callback`
+Counterpart of `PreprocessingNodelet::cloud_callback`
 (`apps/preprocessing_nodelet_ntu.cpp:370-579`, SURVEY.md §3.1): the stages are
 composed masked array ops on the fixed-capacity cloud; the host threads the
 A-GLE state between frames.

@@ -1,6 +1,6 @@
 """Radar graph-SLAM back-end driver.
 
-TPU-native counterpart of `RadarGraphSlamNodelet`
+Counterpart of `RadarGraphSlamNodelet`
 (`apps/radar_graph_slam_nodelet.cpp`, SURVEY.md §3.3-3.4): keyframe selection,
 GP velocity preintegration between keyframes (`preIntegrationTransform`,
 `:363-520`), pose-graph construction (odometry between-factors with
@@ -39,8 +39,7 @@ from .keyframes import KeyFrame, KeyframeUpdater
 def _preint_packed(gyr_pack, vel_pack, meta, mode: str, grid_n: int, ugpm_cfg):
     """Transfer-minimal preintegration dispatch: 3 uploads (packed gyro,
     packed vel, meta [t0, t1, gyr_var, vel_var]) and ONE 48-float pull
-    [dR.ravel(9), dp(3), cov.ravel(36)] instead of ~8 round trips — on a
-    tunneled/remote TPU each trip costs milliseconds (see bench.py)."""
+    [dR.ravel(9), dp(3), cov.ravel(36)] instead of ~8 round trips."""
     if mode == "ugpm":
         meas = ugpm_preintegrate(
             gyr_pack[:, 0], gyr_pack[:, 1:], vel_pack[:, 0], vel_pack[:, 1:],
@@ -98,8 +97,7 @@ class SLAMConfig(NamedTuple):
     floor_max_tilt_nz: float = 0.8
     # pad the pose count to the next power of two with unit-prior dummy poses
     # so the jitted solver compiles once per BUCKET, not once per keyframe
-    # count (compiles dominate on remote-compile TPU setups; the same
-    # bucketing discipline clouds and factor arrays already follow)
+    # count (the same bucketing discipline clouds and factor arrays follow)
     pad_poses_pow2: bool = True
     # dense Cholesky above this stacked dimension is slow to COMPILE (and
     # O(D^3) to run); larger solves switch to the block-sparse CG solver

@@ -5,7 +5,7 @@ rate 1.0 through `bag_player.py`, whose publisher BLOCKS until the pipeline
 signals `/read_until` consumption (flow control:
 `/root/reference/4DRadarSLAM/src/radar_graph_slam/bag_player.py`,
 `scan_matching_odometry_nodelet.cpp:383-389`). This module is the
-TPU-native counterpart: a producer thread releases frames on the recording's
+counterpart: a producer thread releases frames on the recording's
 own wall-clock schedule into a BOUNDED queue feeding the fused frontend +
 backend, in one of two modes:
 

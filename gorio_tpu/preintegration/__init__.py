@@ -4,7 +4,7 @@
 (`preint.h:22-82,1516-1703`): choose LPM or UGPM, and optionally split long
 windows into overlapping chunks of `quantum` seconds combined with
 `combine_preints` — the reference's own blockwise mechanism (SURVEY.md §5
-"long-context"), which maps to a scan over chunked windows on TPU.
+"long-context"), which maps to a scan over chunked windows.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """LPM (linear preintegration model): gyro + ego-velocity -> PreintMeas.
 
-TPU-native counterpart of `ugpm::IterativeIntegrator`
+Counterpart of `ugpm::IterativeIntegrator`
 (`4DRadarSLAM/include/VelInt/preint.h:170-742`). The reference builds a
 dynamically sorted timeline and integrates rotation/position sequentially with
 numeric Jacobians (5 extra full integrations). Here:
@@ -8,7 +8,7 @@ numeric Jacobians (5 extra full integrations). Here:
   * the timeline is a static uniform grid (`grid_n` points, caller picks the
     frequency; reference inserts fake samples at `min_freq` = 500 Hz),
   * SO(3) integration is a `jax.lax.associative_scan` of 3x3 matrix products
-    (log-depth on TPU instead of a serial loop),
+    (log depth instead of a serial loop),
   * the rotation covariance recurrence Sigma' = A Sigma A^T + B Q B^T is the
     same associative scan over affine pairs (A, C),
   * all bias/time-shift Jacobians come from one `jax.jacfwd` through the whole

@@ -1,6 +1,6 @@
 """UGPM: Gaussian-process continuous velocity preintegration.
 
-TPU-native counterpart of `ugpm::Se3Integrator` (`4DRadarSLAM/include/VelInt/
+Counterpart of `ugpm::Se3Integrator` (`4DRadarSLAM/include/VelInt/
 preint.h:747-1494`) and its Ceres cost functions (`cost_functions.h`), the
 paper's core contribution. The reference solves, per window:
 

@@ -3,8 +3,8 @@
 `select_registration` is the counterpart of `select_registration_method`
 (`src/radar_graph_slam/registrations.cpp:23-139`): maps a method name to a
 configured align callable `(source, target, init_T) -> LMResult`. The CUDA
-variants of the reference map to the same TPU kernels (the "CUDA backend" IS
-the XLA/Pallas path here), so FAST_VGICP_CUDA and NDT_CUDA alias their
+variants of the reference map to the same device programs (the "CUDA
+backend" IS the XLA path here), so FAST_VGICP_CUDA and NDT_CUDA alias their
 non-CUDA spellings.
 """
 
@@ -33,7 +33,7 @@ _METHODS = {
     "NDT_CUDA_D2D": ("ndt_d2d", None),  # D2D mode (`ndt_compute_derivatives.cu`)
     # coarse-to-fine schedule (no reference counterpart; see
     # `ndt.ndt_align_multires`): ~2.5x faster than NDT_OMP's single
-    # resolution on TPU with equal-or-better recovered pose
+    # resolution with equal-or-better recovered pose
     "NDT_MULTIRES": ("ndt_cf", None),
 }
 

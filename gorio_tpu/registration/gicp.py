@@ -1,6 +1,6 @@
 """Batched GICP-family registration: FastGICP / FastAPDGICP equivalents.
 
-TPU-native counterpart of `fast_apdgicp/include/fast_gicp/gicp/impl/
+Counterpart of `fast_apdgicp/include/fast_gicp/gicp/impl/
 fast_gicp_impl.hpp` and `fast_apdgicp_impl.hpp` (SURVEY.md §2 #18/#19) and of
 the CUDA pipeline (#21): kNN covariance estimation, per-iteration 1-NN
 correspondences, APD polar measurement covariance, fused Mahalanobis +
@@ -13,6 +13,7 @@ Everything is jittable; `vmap` the top-level aligners over pairs to batch
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import jax
@@ -20,7 +21,7 @@ import jax.numpy as jnp
 
 from ..core import lie
 from ..core.pointcloud import PointCloud
-from .knn import knn, nn1
+from .knn import knn, nn1, nn1_select
 from .lsq import LMConfig, LMResult, lm_optimize
 
 
@@ -54,8 +55,8 @@ def knn_covariances(xyz, mask, k: int = 20, plane_eps: float = 1e-3, block: int 
 
     Parity with `calculate_covariances` (`fast_apdgicp_impl.hpp:351-411`):
     kNN -> covariance -> spectrum clamped to (1, 1, eps) in the eigenbasis.
-    Uses the closed-form symmetric 3x3 eigendecomposition — `jnp.linalg.svd`
-    lowers to an iterative loop on TPU and dominated the align time.
+    Uses the closed-form symmetric 3x3 eigendecomposition instead of the
+    iterative `jnp.linalg.svd` lowering.
     Returns (N, 3, 3)."""
     from ..core.linalg import sym_eigh3
 
@@ -202,9 +203,7 @@ def _correspondences(prob: GICPProblem, T, cfg: GICPConfig, n_total: int | None 
     R = T[:3, :3]
     t = T[:3, 3]
     moved = prob.src_xyz @ R.T + t
-    from ..ops.nn_pallas import nn1_best
-
-    idx, sqd = nn1_best(moved, prob.tgt_xyz, ref_mask=prob.tgt_mask)
+    idx, sqd = nn1(moved, prob.tgt_xyz, ref_mask=prob.tgt_mask)
     ok = (
         prob.src_mask
         & (sqd < cfg.max_correspondence_distance**2)
@@ -300,17 +299,16 @@ def make_gicp_callbacks(prob: GICPProblem, cfg: GICPConfig):
 
     The linearize epilogue (APD covariance, (C_B + R C_A R^T)^-1 Mahalanobis,
     per-point H/b) is written in closed COMPONENT form on (N,) columns,
-    reduced by one (C, N) x (N,) matvec: on TPU the naive (N,3,3)
-    stack/transpose/einsum pipeline costs ~70% of the linearize in layout
-    churn (measured: 0.41 of 0.59 ms at 4096 pts) while the math itself is
-    ~100 flops/point. Equality with the straightforward form is pinned by
+    reduced by one (C, N) x (N,) matvec, instead of stacking, transposing and
+    contracting (N,3,3) blocks; the math itself is ~100 flops/point.
+    Equality with the straightforward form is pinned by
     tests/test_registration.py::test_component_linearize_matches_reference."""
 
     tcov6 = _sym6(prob.tgt_cov)  # componentized once per problem
     scov6 = _sym6(prob.src_cov)
     gate2 = cfg.max_correspondence_distance ** 2
-    # target payload rows selected INSIDE the NN kernel (one one-hot MXU
-    # matmul instead of 8 HBM gathers): [xyz, cov6, cluster, mask]
+    # target payload rows picked with the NN search (one row gather instead
+    # of one gather per field): [xyz, cov6, cluster, mask]
     payload = jnp.concatenate(
         [prob.tgt_xyz] + [c[:, None] for c in tcov6]
         + [prob.tgt_cluster.astype(prob.tgt_xyz.dtype)[:, None],
@@ -318,8 +316,6 @@ def make_gicp_callbacks(prob: GICPProblem, cfg: GICPConfig):
     )
 
     def linearize(T):
-        from ..ops.nn_pallas import nn1_select
-
         dtype = T.dtype
         R = T[:3, :3]
         t = T[:3, 3]
@@ -387,11 +383,7 @@ def make_gicp_callbacks(prob: GICPProblem, cfg: GICPConfig):
             + [m_xx, m_yy, m_zz, m_xy, m_xz, m_yz]  # H_tt
             + br + [me[0], me[1], me[2], cost_col], axis=0,
         )
-        # f32-faithful reduction (MXU default bf16 passes cost ~0.4% in H/b)
-        s = jax.lax.dot_general(
-            cols, okf, (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-        )
+        s = jax.lax.dot_general(cols, okf, (((1,), (0,)), ((), ())))
         Hrr_m = jnp.stack([jnp.stack([s[0], s[3], s[4]]),
                            jnp.stack([s[3], s[1], s[5]]),
                            jnp.stack([s[4], s[5], s[2]])])
@@ -413,6 +405,22 @@ def make_gicp_callbacks(prob: GICPProblem, cfg: GICPConfig):
     return linearize, compute_error
 
 
+def _gicp_normal_equations(moved, mah, m_err, ok):
+    """H (6,6), b (6,) summed over the valid correspondences, straightforward
+    (N,3,3) form. J (3x6) rows: d(err)/d[d_rot, d_trans] = [skew(moved), -I];
+    H = sum J^T M J."""
+    sk = lie.hat(moved)  # (N, 3, 3)
+    okf = ok.astype(moved.dtype)
+    MS = mah @ sk  # (N, 3, 3) = M @ skew
+    H_rr = jnp.einsum("nji,njk,n->ik", sk, MS, okf)
+    H_rt = -jnp.einsum("nji,njk,n->ik", sk, mah, okf)
+    H_tt = jnp.einsum("nij,n->ij", mah, okf)
+    H = jnp.block([[H_rr, H_rt], [H_rt.T, H_tt]])
+    b = jnp.concatenate([jnp.einsum("nji,nj,n->i", sk, m_err, okf),
+                         -jnp.einsum("ni,n->i", m_err, okf)])
+    return H, b
+
+
 def make_gicp_callbacks_reference(prob: GICPProblem, cfg: GICPConfig):
     """The straightforward (N,3,3) einsum formulation — kept as the equality
     reference for the component-form fast path above."""
@@ -420,18 +428,7 @@ def make_gicp_callbacks_reference(prob: GICPProblem, cfg: GICPConfig):
     def linearize(T):
         idx, ok, mah, w, _ = _correspondences(prob, T, cfg)
         moved, err, m_err, cost = _error_terms(prob, T, idx, ok, mah, w)
-        # J (3x6) rows: d(err)/d[d_rot, d_trans] = [skew(moved), -I]
-        sk = lie.hat(moved)  # (N, 3, 3)
-        okf = ok.astype(moved.dtype)
-        # H = sum J^T M J with J = [sk | -I]
-        MS = mah @ sk  # (N, 3, 3) = M @ skew
-        H_rr = jnp.einsum("nji,njk,n->ik", sk, MS, okf)
-        H_rt = -jnp.einsum("nji,njk,n->ik", sk, mah, okf)
-        H_tt = jnp.einsum("nij,n->ij", mah, okf)
-        H = jnp.block([[H_rr, H_rt], [H_rt.T, H_tt]])
-        b_r = jnp.einsum("nji,nj,n->i", sk, m_err, okf)
-        b_t = -jnp.einsum("ni,n->i", m_err, okf)
-        b = jnp.concatenate([b_r, b_t])
+        H, b = _gicp_normal_equations(moved, mah, m_err, ok)
         aux = (idx, ok, mah, w)
         return cost, H, b, aux
 
@@ -441,9 +438,6 @@ def make_gicp_callbacks_reference(prob: GICPProblem, cfg: GICPConfig):
         return cost
 
     return linearize, compute_error
-
-
-from functools import partial
 
 
 @partial(jax.jit, static_argnames=("cfg",))

@@ -1,12 +1,18 @@
-"""Brute-force nearest-neighbor search, blocked for TPU.
+"""Brute-force nearest-neighbor search, blocked.
 
 Replaces the reference's kd-trees (pcl::search::KdTree + nanoflann, SURVEY.md
 §2 #13/#18) and the CUDA brute-force kNN (`fast_apdgicp/src/fast_gicp/cuda/
 brute_force_knn.cu`): distances are computed block-by-block as
-|q|^2 + |r|^2 - 2 q.r^T (one MXU matmul per block) with masked padding, then
-reduced with argmin / top_k. O(N*M) flops but MXU-friendly and exact — at SLAM
-scan sizes (2-30k points) this beats tree traversal on TPU by orders of
-magnitude. `block` bounds the (block, M) distance tile living in VMEM/HBM.
+|q|^2 + |r|^2 - 2 q.r^T (one matmul per block) with masked padding, then
+reduced with argmin / top_k. O(N*M) flops, exact, and free of data-dependent
+control flow at SLAM scan sizes (2-30k points). `block` bounds the (block, M)
+distance tile held in device memory.
+
+The expansion needs full-f32 matmuls (`utils/jax_config.configure_jax`):
+with points up to ~50 m out, q.r reaches ~2500 m^2, and a float32 matmul that
+rounds its operands to TF32 (about 3 decimal digits, the GPU default) would
+put errors of order 1 m^2 on distances compared against 0.01 m^2 voxel leaves
+and metre-scale correspondence gates.
 """
 
 from __future__ import annotations
@@ -38,12 +44,27 @@ def nn1(query, ref, ref_mask=None, block: int = 1024):
         bias = jnp.where(ref_mask, 0.0, _BIG)
 
     def one_block(q_blk):
-        d2 = _block_dists(q_blk, ref, bias)
-        idx = jnp.argmin(d2, axis=-1)
-        return idx, jnp.take_along_axis(d2, idx[:, None], axis=-1)[:, 0]
+        idx = jnp.argmin(_block_dists(q_blk, ref, bias), axis=-1)
+        # the winner's distance from coordinate differences: the expansion
+        # cancels to ~1e-3 m^2 in float32 at 50 m, the difference does not
+        diff = q_blk - ref[idx]
+        return idx, jnp.sum(diff * diff, axis=-1) + bias[idx]
 
     idx, d2 = jax.lax.map(one_block, q.reshape(-1, block, 3))
     return idx.reshape(-1)[:n], d2.reshape(-1)[:n]
+
+
+def nn1_select(query, ref, payload, ref_mask=None, block: int = 1024):
+    """1-NN plus the winner's payload row: (idx (N,), sqdist (N,), payload[idx]
+    (N, P)) — one row gather feeds the GICP linearize every field it needs.
+
+    A fused Pallas Triton kernel for this (the running argmin in registers,
+    the payload row loaded by index) was measured on an H100: 1.6-2x faster
+    than this form alone, but no faster per frame of the fused frontend at
+    the pipeline's 2,048 points, so it was removed (PERF.md, "Kernel
+    decisions")."""
+    idx, d2 = nn1(query, ref, ref_mask=ref_mask, block=block)
+    return idx, d2, payload.astype(query.dtype)[idx]
 
 
 @partial(jax.jit, static_argnames=("k", "block"))
@@ -70,14 +91,14 @@ def rbf_covariances(xyz, mask=None, kernel_width: float = 0.25, max_dist: float 
                     block: int = 512):
     """RBF-kernel-weighted neighborhood mean/covariance per point.
 
-    TPU-native counterpart of the CUDA `covariance_estimation_rbf`
+    Counterpart of the CUDA `covariance_estimation_rbf`
     (`fast_apdgicp/src/fast_gicp/cuda/covariance_estimation_rbf.cu:67-110`,
     used by `FastVGICPCuda` with `NearestNeighborMethod::GPU_RBF_KERNEL`):
     every neighbor within `max_dist` contributes with weight
     w = exp(-kernel_width * d^2); the weighted second moment about the
     weighted mean is the covariance. Defaults mirror
     `fast_vgicp_cuda.cu:25-26` (kernel_width 0.25, max_dist 3.0). All-pairs
-    blocked accumulation — three MXU matmuls per block instead of a kd-tree.
+    blocked accumulation — three matmuls per block instead of a kd-tree.
     Returns (mean (N,3), cov (N,3,3), sum_w (N,))."""
     n = xyz.shape[0]
     pad = (-n) % block
@@ -99,8 +120,8 @@ def rbf_covariances(xyz, mask=None, kernel_width: float = 0.25, max_dist: float 
         d2 = _block_dists(q_blk, xyz, bias)
         w = jnp.where(d2 <= md2, jnp.exp(-kw * d2), 0.0)  # (B, N)
         sum_w = jnp.sum(w, axis=-1)
-        m1 = w @ rx  # (B, 3) weighted sum of positions
-        m2 = w @ r2  # (B, 6) weighted sum of second moments
+        m1 = w @ rx  # (B, 3) weighted positions
+        m2 = w @ r2  # (B, 6) second moments
         return sum_w, m1, m2
 
     sum_w, m1, m2 = jax.lax.map(one_block, q.reshape(-1, block, 3))

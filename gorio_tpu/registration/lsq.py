@@ -1,6 +1,6 @@
 """Shared Gauss-Newton / Levenberg-Marquardt SE(3) least-squares driver.
 
-TPU-native counterpart of `fast_gicp`'s `LsqRegistration`
+Counterpart of `fast_gicp`'s `LsqRegistration`
 (`fast_apdgicp/include/fast_gicp/gicp/impl/lsq_registration_impl.hpp:55-173`):
 the same adaptive-lambda LM with inner retry iterations and rot/trans epsilon
 convergence, expressed as bounded `lax.while_loop`s so one compiled program

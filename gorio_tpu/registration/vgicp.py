@@ -1,6 +1,6 @@
 """Voxelized GICP (VGICP): distribution-to-distribution over a voxel map.
 
-TPU-native counterpart of `FastVGICP` (`fast_apdgicp/include/fast_gicp/
+Counterpart of `FastVGICP` (`fast_apdgicp/include/fast_gicp/
 fast_vgicp.hpp` + impl, SURVEY.md §2 #20) and of the CUDA voxel pipeline
 (#21 `FastVGICPCuda`): the target becomes a Gaussian voxel map (mean +
 covariance per voxel, additive accumulation of the per-point regularized

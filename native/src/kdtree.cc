@@ -3,7 +3,7 @@
 // Native counterpart of the reference's vendored nanoflann
 // (4DRadarSLAM/include/scan_context/nanoflann.hpp, 2040 LoC) and of
 // pcl::search::KdTree as used for correspondences — kept for host-side
-// validation of the TPU brute-force NN kernels and for CPU-only deployments.
+// validation of the brute-force NN search and for CPU-only deployments.
 // Iterative build (median split on the widest axis), heap-based kNN.
 
 #include <algorithm>
@@ -138,7 +138,6 @@ void gorio_kdtree_destroy(void* tree) { delete static_cast<gorio::KDTree*>(tree)
 void gorio_kdtree_knn(void* tree, const float* queries, int nq, int k,
                       int32_t* out_idx, float* out_d2) {
   auto* t = static_cast<gorio::KDTree*>(tree);
-#pragma omp parallel for schedule(static)
   for (int i = 0; i < nq; ++i) {
     t->knn(queries + 3 * i, k, out_idx + (size_t)k * i, out_d2 + (size_t)k * i);
   }

@@ -1,11 +1,12 @@
 """Two-process `jax.distributed` demo: cross-host collectives on CPU.
 
-BASELINE.md asks for N>=2 host measurements. No second TPU host is reachable
-from this container, so this driver launches TWO OS processes, each a JAX
-"host" with its own local CPU devices, connected through
-`jax.distributed.initialize` — the exact bring-up path
-(`gorio_tpu.parallel.mesh.initialize_distributed`) a real multi-host pod
-slice uses, with DCN collectives replaced by the CPU cross-process backend.
+This driver launches TWO OS processes, each a JAX "host" with its own local
+CPU devices, connected through `jax.distributed.initialize` — the bring-up
+path (`gorio_tpu.parallel.mesh.initialize_distributed`) a real multi-host
+deployment uses, with the collectives on the CPU cross-process backend. It
+demonstrates the `jax.distributed` wiring, not the GPU: both workers run with
+JAX_PLATFORMS=cpu, so neither opens a card (a second JAX process on one card
+would fail for want of memory).
 
 Each process contributes its local shard of an SMC particle population; the
 collective resampling inside `sharded_smc_step` then runs psum/all_gather
@@ -88,6 +89,7 @@ def worker(rank: int):
 
 def driver():
     env = dict(os.environ)
+    env["JAX_PLATFORMS"] = "cpu"  # the workers never open a card
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
     procs = []

@@ -8,6 +8,9 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from gorio_tpu.utils.jax_config import configure_jax  # noqa: E402
+
+configure_jax()
 
 import numpy as np
 

@@ -1,7 +1,10 @@
-"""Profile ugpm_fit stages on TPU (run alone)."""
+"""Profile ugpm_fit stages on the default device (run alone: one JAX process per card)."""
 import sys, time
 from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from gorio_tpu.utils.jax_config import configure_jax  # noqa: E402
+
+configure_jax()
 import numpy as np, jax, jax.numpy as jnp
 from gorio_tpu.preintegration import ugpm as U
 

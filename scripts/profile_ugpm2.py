@@ -1,6 +1,9 @@
 import sys, time
 from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from gorio_tpu.utils.jax_config import configure_jax  # noqa: E402
+
+configure_jax()
 import numpy as np, jax, jax.numpy as jnp
 from gorio_tpu.preintegration import ugpm as U
 

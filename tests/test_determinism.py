@@ -1,7 +1,7 @@
 """Determinism: the jitted pipeline stages are bitwise reproducible.
 
 The reference's concurrency story is hand-rolled mutexes with at least one
-latent unlock bug (SURVEY.md §5 "race detection: none"). The TPU-native
+latent unlock bug (SURVEY.md §5 "race detection: none"). The JAX
 design is pure-functional: same inputs -> same bits. These tests pin that
 property for the hot stages, which is what makes replay debugging and
 multi-host consistency checks possible at all."""

@@ -103,10 +103,9 @@ def test_ndt_pair_fitness_regression():
     # default voxel config — the same protocol the CLI align app and bench.py
     # use (a min_points_per_voxel=4 override degrades this pair to ~0.217).
     # The NDT score is multimodal and the basin reached is platform-numerics
-    # sensitive: on the TPU (f32, the target hardware) this align measures
-    # fitness 0.138-0.158, well below the reference's 0.214205; XLA:CPU
-    # consistently lands in a neighboring optimum at 0.2163 (within 1.01x of
-    # the reference on its own hardware class). Gate at 1.02x on CPU.
+    # sensitive: XLA:CPU consistently lands in a neighboring optimum at
+    # 0.2163 (within 1.01x of the reference on its own hardware class).
+    # Gate at 1.02x on CPU and at the reference's value on an accelerator.
     align = select_registration("NDT_OMP", resolution=2.0)
     res = align(source, target)
     fit, _ = fitness_score(source, target, res.T, max_range=jnp.inf)

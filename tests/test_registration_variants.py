@@ -115,18 +115,6 @@ def test_submap_odometry_runs():
     assert errs[-1] < 0.3, errs[-1]
 
 
-def test_nn1_best_fallback_cpu():
-    from gorio_tpu.ops.nn_pallas import nn1_best
-    from gorio_tpu.registration.knn import nn1
-
-    rng = np.random.default_rng(0)
-    q = jnp.asarray(rng.normal(size=(300, 3)))
-    r = jnp.asarray(rng.normal(size=(500, 3)))
-    i1, d1 = nn1_best(q, r)
-    i2, d2 = nn1(q, r)
-    np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-
-
 def test_rbf_covariances_match_bruteforce():
     from gorio_tpu.registration.knn import rbf_covariances
 

@@ -54,7 +54,7 @@ def test_backend_scales_to_1200_keyframes():
     dt_warm = time.perf_counter() - t0
     assert opt is not None and np.all(np.isfinite(opt))
     # warm full-graph solve at 1200 keyframes must stay interactive on 2 CPU
-    # cores (TPU is ms-scale); round-2's dense path was 52 s at 297
+    # cores; round-2's dense path was 52 s at 297
     assert dt_warm < 20.0, f"warm solve {dt_warm:.1f}s"
     # trajectory stays near the odometry (only a prior + between chain)
     stamps, poses = slam.trajectory()
